@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """BASELINE.json config 3: secpar=256 batched aggregate of 2^10 signatures,
-single-chip NTT-domain verify.
+single-device NTT-domain verify.
 
 One aggregation group with N=1024 signers (capacity at secpar=256 is 2818):
 batched keygen + device-hash sign, host-pipeline alpha derivation for the
-single giant group, NTT-domain aggregate sum and verify on the chip.
+single giant group, NTT-domain aggregate sum and verify on the device.
 
 Usage: python benchmarks/config3_aggregate1k.py [--signers 1024]
 """
@@ -26,13 +26,12 @@ def main():
 
     import jax
 
-    cache = Path(__file__).resolve().parents[1] / ".jax_cache"
-    cache.mkdir(exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from fusion_cryptography_tpu.utils.cache import enable_compile_cache
+
+    print(f"device: {jax.devices()[0].platform} {jax.devices()[0].device_kind}")
+    enable_compile_cache()
 
     import fusion_cryptography_tpu as ftpu
-    from fusion_cryptography_tpu.scheme import lifecycle as lc
 
     N = args.signers
     params = ftpu.fusion_setup(args.secpar, 42)
@@ -42,7 +41,7 @@ def main():
     t0 = time.time()
     keys = ftpu.keygen(params, list(range(1, N + 1)))
     sigs = ftpu.sign(params, keys, msgs)
-    np.asarray(sigs.sig[:1, :1, :1])
+    sigs.sig.block_until_ready()
     print(f"keygen+sign {N} keys: {time.time()-t0:.2f}s", flush=True)
 
     t0 = time.time()

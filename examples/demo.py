@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Two-signer lifecycle walkthrough (the TPU-native analogue of the reference's
+"""Two-signer lifecycle walkthrough (the tensor-native analogue of the reference's
 misc/demo.py): setup -> keygen -> sign -> aggregate -> verify, shown on both API
 levels."""
 import sys

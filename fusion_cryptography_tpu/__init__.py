@@ -1,4 +1,4 @@
-"""fusion_cryptography_tpu — a TPU-native Fusion aggregate-signature framework.
+"""fusion_cryptography_tpu — a JAX-native Fusion aggregate-signature framework.
 
 A from-scratch JAX/XLA re-architecture of the Fusion one-time aggregatable
 post-quantum lattice signature scheme (reference: geometry-labs/fusion-cryptography;

@@ -425,7 +425,7 @@ def assemble_chunks_words(
     extra_bounds: Optional[Sequence[Tuple[int, int]]] = None,
     pad_words: Optional[int] = None,
 ):
-    """Packed-word twin of :func:`assemble_chunks_lm` (4x the VPU density).
+    """Packed-word twin of :func:`assemble_chunks_lm` (4 bytes per element).
 
     values int32[num_numbers, B]; extras (uint32[ceil(width/4), B], int32[B])
     pairs in ops/ragged_words layout with zeroed scratch.  Returns

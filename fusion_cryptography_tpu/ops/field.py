@@ -1,9 +1,8 @@
-"""TPU-native modular arithmetic for prime fields Z_q (q < 2**31 odd prime).
+"""Modular arithmetic for prime fields Z_q (q < 2**31 odd prime) on uint32.
 
 The reference implementation (/root/reference/algebra/ntt.py:93, ``cent``) does all
-field arithmetic on arbitrary-precision CPython ints.  On TPU there is no native
-64-bit integer path worth using (XLA emulates i64 with i32 pairs), so this module
-implements the field directly on ``uint32`` lanes of the VPU:
+field arithmetic on arbitrary-precision CPython ints.  This module implements the
+field directly on ``uint32`` elements, with no 64-bit integer type anywhere:
 
 * values are carried as *unsigned residues* in ``[0, q)`` inside kernels,
 * the public/serialized representation is the *centered representative* in
@@ -21,7 +20,7 @@ A :class:`Field` instance bundles the per-modulus constants; ``FUSION_FIELD`` is
 the production instance for the Fusion prime q = 2147465729 (fusion/fusion.py:17),
 and the module-level functions are bound to it for convenience.  Everything is
 shape-polymorphic, jit-friendly, and branch-free (data-dependent selects only);
-no ``jax_enable_x64`` required on CPU or TPU.
+no ``jax_enable_x64`` required on any backend.
 """
 from __future__ import annotations
 

@@ -1,21 +1,20 @@
-"""Batched Keccak-f[1600] / SHAKE256 on the TPU VPU.
+"""Batched Keccak-f[1600] / SHAKE256 as XLA elementwise programs.
 
 The reference derives every challenge and aggregation coefficient from
 SHAKE256 XOFs (fusion/fusion.py:412-419, :573-591) computed by ``hashlib`` on
-the host.  At production batch sizes host Keccak is the end-to-end bottleneck
-(PERFORMANCE.md), so this module runs the sponge on-device: a batch of B
-independent sponges is 25 64-bit lanes carried as 50 ``uint32[B]`` tensors.
+the host.  At production batch sizes host Keccak is the end-to-end bottleneck,
+so this module runs the sponge on-device: a batch of B independent sponges is
+25 64-bit lanes carried as 50 ``uint32[B]`` tensors.
 
 The lane dimension is *unrolled at trace time* (a Python tuple of arrays), so
-the permutation lowers to pure elementwise VPU ops with zero data movement:
+the permutation lowers to pure elementwise ops with zero data movement:
 
 * pi is free — it is Python-level renaming of the 25 lane variables;
 * rho's per-lane rotations are static constant shift pairs (no selects);
 * theta/chi are straight XOR/AND/NOT chains over ``[B]`` vectors.
 
-This measures ~130 M perms/s on one v5e chip at B=32768 (~12x the same
-permutation written as a ``uint32[25, 2, B]`` tensor with rolls and gathers,
-and ~25x a 2-core AVX-512 host).  Only the 24 rounds are a ``fori_loop``.
+The round (:func:`_keccak_round`) is shared with the fused GPU sponge kernel
+(ops/keccak_triton.py), which the verify pipeline runs on a GPU.
 
 Absorption handles ragged payload lengths with a masked ``lax.scan`` over rate
 blocks: every sponge processes ``max_blocks`` block slots, but a lane's state
@@ -102,7 +101,7 @@ def _rotl_static(lo, hi, r: int):
 
 
 def _keccak_round(lanes: Lanes, rc_lo, rc_hi, i, rc=None) -> Lanes:
-    """One Keccak round, fully unrolled over lanes (elementwise VPU ops only).
+    """One Keccak round, fully unrolled over lanes (elementwise ops only).
 
     ``rc=(lo, hi)`` supplies immediate round constants (unrolled path);
     otherwise they are gathered from the (rc_lo, rc_hi) tables at index i."""
@@ -137,14 +136,20 @@ def _keccak_round(lanes: Lanes, rc_lo, rc_hi, i, rc=None) -> Lanes:
 
 
 def _round_unroll() -> int:
-    """Trace-time round-unroll factor (divides 24).
+    """Trace-time round-unroll factor (divides 24): 1 on the CPU, 2 elsewhere.
 
-    On the accelerator the rounds are fully unrolled: as a ``fori_loop`` each
-    round body is its own tiny kernel whose per-iteration latency roughly
-    doubles the permutation cost at production batch sizes.  On CPU (the test
-    suite) full unroll makes XLA's compile of every absorb/squeeze scan body
-    take minutes, so a partial unroll keeps programs small; the arithmetic is
-    identical either way.  Override with ``FUSION_KECCAK_UNROLL``.
+    Compile time decides it.  On an H100 (700 W limit) XLA took 118 s to
+    compile the full 24-round unroll of the aggregation sponge's scan body,
+    and the on-device prehash (SHA3 with a 24-round unroll, decimal render
+    unrolled) did not compile within 120 s; with a 2-round unroll and the
+    render as a scan the prehash compiled in 5.2 s and ran in 1.72 ms at
+    32,768 lanes.  On another H100 (400 W limit) a 4-round unroll ran that
+    prehash in 1.05 ms against 1.21 ms for 2 rounds, and compiled in 7.8 s:
+    0.15 ms is 0.3 % of a G=8192 verify, so 2 stays.  On the CPU (the test
+    suite) one round per loop step keeps every scan body small.  On a GPU the verify pipeline's SHAKE sponges are
+    the fused kernel (ops/keccak_triton.py); this sponge runs the SHA3
+    prehash there.  The arithmetic is identical either way.  Override with
+    ``FUSION_KECCAK_UNROLL``.
     """
     import os
 
@@ -153,7 +158,7 @@ def _round_unroll() -> int:
         u = int(v)
     else:
         try:
-            u = 24 if jax.default_backend() != "cpu" else 1
+            u = 2 if jax.default_backend() != "cpu" else 1
         except Exception:  # pragma: no cover - backendless tracing
             u = 1
     if 24 % u:

@@ -6,7 +6,7 @@ Gentleman–Sande inverse) as fully vectorized, statically-shaped stage sweeps:
 
 * the polynomial axis is the trailing axis; a stage with ``m`` blocks of span
   ``2t`` is a reshape to ``(..., m, 2, t)`` followed by lane-wise butterflies —
-  no scalar loops, no gathers, so XLA tiles it straight onto the VPU and fuses
+  no scalar loops, no gathers, so XLA emits plain elementwise code and fuses
   adjacent stages;
 * twiddles are powers of the order-2d primitive root stored in bit-reversed
   order (identical table layout to the reference, so the forward output is in
@@ -222,13 +222,13 @@ def ntt_inv_u(plan: NTTPlan, x):
 
 
 # ---------------------------------------------------------------------------
-# MXU inverse transform: exact bf16 limb matmuls
+# Dense inverse transform: exact bf16 limb matmuls
 # ---------------------------------------------------------------------------
 
 
 @lru_cache(maxsize=None)
 def _intt_mxu_tables(plan: NTTPlan):
-    """Inverse-transform matrix as MXU-ready bf16 limb planes.
+    """Inverse-transform matrix as bf16 limb planes for one matmul.
 
     coef[j] = sum_i W[j, i] * ntt[i] mod q with
     W[j, i] = d^-1 * inv_psi^((2*bitrev(i)+1) * j) — the dense form of the
@@ -239,7 +239,7 @@ def _intt_mxu_tables(plan: NTTPlan):
     device-side fold is only sum_a 2^(8a) * P_a mod q — 4 modular
     constant-multiplies per element instead of one per (a, b) pair.
 
-    Exactness: bf16 holds integers < 2^8 exactly; each MXU product is a full
+    Exactness: bf16 holds integers < 2^8 exactly; each product is a full
     f32 (<= 16-bit) value and the f32 accumulation of d <= 256 terms stays
     below 2^24, so every partial sum is an exact integer.
     """
@@ -270,10 +270,8 @@ def _intt_mxu_tables(plan: NTTPlan):
     import ml_dtypes
 
     # Single-dot layout: limbs ride the CONTRACTION axis (X [M, 4d] bf16
-    # against W_cat [4d_in, 4d_out]), so the MXU sees one big matmul and the
-    # limb planes are materialized once, not 16 times (the 16-dot form is
-    # HBM-bound on operand materialization — measured 12.2 ms vs 8.5 for the
-    # butterfly sweep at [170k, 256]).
+    # against W_cat [4d_in, 4d_out]), so the limb planes feed one matmul and
+    # are materialized once, not 16 times.
     # W_cat[(b*d + i), (a*d + j)] = limb a of (W[j, i] * 2^(8b) mod q)
     Wcat = np.empty((4 * d, 4 * d), dtype=np.float32)
     for b in range(4):
@@ -284,16 +282,15 @@ def _intt_mxu_tables(plan: NTTPlan):
 
 
 def ntt_inv_u_mxu(plan: NTTPlan, x):
-    """MXU inverse negacyclic NTT on unsigned residues — bit-exact twin of
+    """Dense inverse negacyclic NTT on unsigned residues — bit-exact twin of
     :func:`ntt_inv_u` computed as one exact bf16 limb matmul + a 4-term
     modular fold.
 
-    MEASURED NEGATIVE RESULT on v5e at [2048*83, 256] (stage_lab): 11.2 ms vs
-    8.5 ms for the O(d log d) butterfly sweep — the dense form's operand
-    materialization and f32 output traffic eat the MXU's FLOP advantage at
-    d=256.  Kept (tested, bit-exact) as the candidate for larger-d parameter
-    sets or TPU generations with faster int-to-bf16 conversion paths; the
-    production lattice stage uses ntt_inv_u."""
+    Off the production path (the lattice stage uses the :func:`ntt_inv_u`
+    stage sweep); kept as the exact dense form a tensor-core INTT would start
+    from.  The products are exact only with f32 accumulation at full
+    precision, so the dot pins both: a GPU backend may otherwise pick a
+    reduced-precision algorithm."""
     F = plan.field
     d = plan.degree
     Wcat, fold, fold_sh = _intt_mxu_tables(plan)
@@ -307,6 +304,7 @@ def ntt_inv_u_mxu(plan: NTTPlan, x):
     )
     t = jax.lax.dot_general(
         xl, jnp.asarray(Wcat), (((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )  # [M, 4d]: column block a = P_a, exact integer f32 (< 4 * 2^24)
     acc = None

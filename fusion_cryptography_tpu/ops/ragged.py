@@ -15,13 +15,11 @@ these preimages are assembled as tensors:
   by *recursive doubling with barrel shifts* instead of gathers.
 
 The gather formulation of ``ragged_concat`` is kept for small shapes and as a
-reference oracle, but it is catastrophically slow on TPU at production sizes:
-minor-dimension gathers run at ~85 M elements/s on a v5e (measured), i.e.
-seconds per challenge-preimage batch.  The Chunk algorithm never gathers:
+reference oracle; the Chunk algorithm never gathers:
 content is carried *left-aligned with zeroed scratch*, and concatenating two
 chunks places the right chunk at the left chunk's static maximum width and
 barrel-shifts it left by the (dynamic) slack ``max_len - len`` — a sequence of
-``ceil(log2(slack_range))`` masked static shifts, all elementwise VPU ops.
+``ceil(log2(slack_range))`` masked static shifts, all elementwise ops.
 Leaves with a shared shape (the "sep + decimal number" cells that dominate the
 Fusion preimages) are merged as a single [B, K, W] tensor, halving K per level,
 so the whole assembly is O(total_bytes * log) elementwise work.
@@ -214,9 +212,9 @@ def fold_chunks(nodes) -> Chunk:
 # ---------------------------------------------------------------------------
 # Lane-major ("..., B"-trailing) variants — the production layout.
 #
-# TPU VPU lanes run along the MINOR axis.  Byte strings are at most a few KB
-# wide but batches are tens of thousands of rows, so carrying buffers as
-# uint8[W, B] (batch minor) keeps every elementwise op fully lane-utilized,
+# Byte strings are at most a few KB wide but batches are tens of thousands
+# of rows, so carrying buffers as uint8[W, B] (batch minor) keeps every
+# elementwise op contiguous along the batch,
 # while the batch-major [B, W] forms above waste (128 - W%128)/128 of each
 # register on narrow cell widths.  ops/keccak.py already works lane-major
 # (uint32[..., B] lane tuples); these variants let the whole preimage pipeline

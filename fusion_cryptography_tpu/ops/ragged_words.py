@@ -1,18 +1,17 @@
 """Word-carrier ragged byte assembly: uint32-packed strings, 4 bytes per lane.
 
 The byte-carrier assembly (ops/ragged.py) moves uint8[W, B] buffers through
-O(log) barrel-shift passes.  On TPU every uint8 elementwise op occupies a full
-32-bit VPU lane, so a W-byte buffer costs W vreg-lanes per pass — 4x the
-information density the hardware offers.  This module carries the same ragged
-strings as *little-endian packed words* uint32[ceil(W/4), B]:
+O(log) barrel-shift passes, one element per byte.  This module carries the
+same ragged strings as *little-endian packed words* uint32[ceil(W/4), B],
+4 bytes per element:
 
 * byte j of the string is bits ``8*(j%4) .. 8*(j%4)+7`` of word ``j//4`` —
   exactly the SHAKE/Keccak lane packing, so assembled preimages feed
   ops/keccak.py's sponge with ZERO repacking (the byte path spends ~10 ops/B
   masking + widening bytes into words before every absorb);
 * barrel shifts decompose into a word-level barrel (log2(max_s/4) passes over
-  W/4 lanes) plus ONE dynamic sub-word pass — ~4x fewer VPU ops than the
-  byte-level barrel;
+  W/4 lanes) plus ONE dynamic sub-word pass — ~4x fewer elementwise ops
+  than the byte-level barrel;
 * merges place the right chunk with a *static* sub-word rotation (compile-time
   lead%4) and OR, preserving the byte-path algebra (content left-aligned,
   zero scratch).
@@ -163,10 +162,9 @@ def shift_left_w(buf, s, max_s: int):
     # word-level barrel over wq = s // 4, radix 4.  Every pass pre-pads the
     # buffer ONCE and takes its shifted operands as SLICES of that one array:
     # XLA fuses slice operands into the select but materializes pad-created
-    # operands, so the slice form runs each pass at ~HBM roofline — measured
-    # 2.4x faster than the pad-per-operand form at [1800w, 8192]
-    # (benchmarks/shift_lab.py).  FUSION_RADIX2_BARREL=1 falls back to a
-    # radix-2 where-chain (debug knob, same slice trick).
+    # operands, so each pass reads one array instead of several.
+    # FUSION_RADIX2_BARREL=1 falls back to a radix-2 where-chain (debug knob,
+    # same slice trick).
     import os
 
     wq = s >> 2
@@ -424,26 +422,14 @@ def render_bigint_dec_w(digest_words) -> WChunk:
             nxt.append((qhi << np.uint32(16)) | qlo)
         return jnp.stack(nxt[::-1]), r
 
-    try:
-        unrolled = jax.default_backend() != "cpu"
-    except Exception:  # pragma: no cover
-        unrolled = False
-    if unrolled:
-        # full unroll: 78 dependent ~50-op sweeps; scan latency would dominate
-        limbs = digest_words
-        planes = []
-        for _ in range(PREHASH_DIGITS):
-            limbs, r = divmod10(limbs)
-            planes.append(r + np.uint32(ord("0")))
-    else:
-        # CPU (tests): the 5k-op unrolled chain makes XLA's CPU compile take
-        # minutes — scan keeps the program one sweep long
-        def step(limbs, _):
-            limbs, r = divmod10(limbs)
-            return limbs, r + np.uint32(ord("0"))
+    # a scan keeps the program one sweep long: the 5k-op unrolled chain
+    # makes XLA's compile take minutes (CPU and GPU alike)
+    def step(limbs, _):
+        limbs, r = divmod10(limbs)
+        return limbs, r + np.uint32(ord("0"))
 
-        _, digs = jax.lax.scan(step, digest_words, None, length=PREHASH_DIGITS)
-        planes = [digs[t] for t in range(PREHASH_DIGITS)]
+    _, digs = jax.lax.scan(step, digest_words, None, length=PREHASH_DIGITS)
+    planes = [digs[t] for t in range(PREHASH_DIGITS)]
     # field: 80 bytes (20 words), right-aligned: byte 79-t is digit t (LSB t)
     # bytes 0..1 are scratch zeros
     byte_planes = [jnp.zeros((B,), _U32), jnp.zeros((B,), _U32)] + planes[::-1]

@@ -320,7 +320,7 @@ def _block_powers(geom_off: int, count: int, bpb: int, mods: np.ndarray, n_bytes
 def realign_words(words, byte_off: int, out_words: int):
     """Static sub-word realign of packed-word streams: returns
     uint32[out_words, B] whose byte j is byte ``byte_off + j`` of the input
-    (zero-filled past the end).  ~3 VPU ops — free next to any dynamic shift."""
+    (zero-filled past the end).  ~3 elementwise ops — free next to any dynamic shift."""
     r0, w0 = byte_off % 4, byte_off // 4
     need = out_words + (1 if r0 else 0)
     reg = words[w0 : w0 + need]

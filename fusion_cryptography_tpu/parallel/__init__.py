@@ -1,7 +1,7 @@
 """Multi-chip parallelism: device meshes, sharded lifecycle, collectives.
 
 The reference is single-threaded CPython (SURVEY.md §2: no parallelism of any
-kind); this subsystem is new, designed TPU-first per SURVEY.md §2's parallelism
+kind); this subsystem is new, designed per SURVEY.md §2's parallelism
 table:
 
 * **dp** ("keys"): the batch of one-time keys/signatures sharded across chips;

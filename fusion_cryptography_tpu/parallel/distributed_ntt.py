@@ -13,9 +13,9 @@ over Z_q.  Sharding columns of the transform matrix (inputs) and rows of the
 output over the mesh axis turns it into
 
     partial_s = V[:, block_s] @ x[block_s]         (local, Montgomery-lifted)
-    out       = psum_scatter(partial_s)            (modular, over ICI)
+    out       = psum_scatter(partial_s)            (modular)
 
-i.e. one reduce-scatter per transform — the canonical TPU pattern for a
+i.e. one reduce-scatter per transform — the canonical pattern for a
 distributed linear operator.  The modular reduce-scatter splits residues into
 16-bit limbs so int32 collectives stay exact (same trick as
 parallel/sharded._psum_mod).  Results are **bit-identical** to ops/ntt.py,

@@ -172,7 +172,7 @@ def prepare_real(params: Params, rank_p: int, seeds, messages):
 
 
 def sharded_verify_device(params: Params, mesh: Mesh, vks, messages, aggs,
-                          *, group_chunk: int = 512, axis: str = "dp"):
+                          *, group_chunk: int = None, axis: str = "dp"):
     """The flagship all-on-device verify pipeline
     (scheme/device_pipeline.verify_batch_device) under ``shard_map`` over the
     ``dp`` mesh axis on the GROUPS dimension.
@@ -188,10 +188,9 @@ def sharded_verify_device(params: Params, mesh: Mesh, vks, messages, aggs,
     vks int32[G, N, 2, d], messages G*N strings, aggs int32[G, rank, d];
     G must be divisible by the dp axis size.  Returns (eq, norm_ok,
     weight_ok) bool[G].  Bitwise equal to the single-device path
-    (tests/test_sharded.py::test_sharded_device_verify).
+    (tests/test_sharded.py::test_sharded_device_verify).  Host inputs go
+    straight to their shards; device-resident inputs are resharded.
     """
-    from functools import partial as _partial
-
     from jax.sharding import NamedSharding
 
     from ..scheme import device_pipeline as dpl
@@ -202,20 +201,21 @@ def sharded_verify_device(params: Params, mesh: Mesh, vks, messages, aggs,
         raise ValueError(f"G={G} must be divisible by the {axis} axis ({ndp})")
     Gl = G // ndp
     P = dpl.get_pipeline(params, N)
-    chunk = dpl._fused_chunk(P, Gl, group_chunk)
+    chunk = dpl._fused_chunk(
+        Gl, dpl.GROUP_CHUNK if group_chunk is None else group_chunk
+    )
     msgs = list(messages)
     if len(msgs) != G * N:
         raise ValueError(f"need {G * N} messages, got {len(msgs)}")
     packed_np = P.prep_packed(msgs).reshape(G, N, -1)
-    lattice_chunk = Gl if P.mxu_intt else dpl._lattice_chunk(Gl, chunk)
 
-    fn = _sharded_verify_fn(params, mesh, N, chunk, lattice_chunk, axis,
-                            dpl._env_flags())
+    fn = _sharded_verify_fn(params, mesh, N, chunk, axis, dpl._env_flags())
     sh = NamedSharding(mesh, jax.sharding.PartitionSpec(axis))
-    vks = jax.device_put(jnp.asarray(vks), sh)
-    packed = jax.device_put(jnp.asarray(packed_np), sh)
-    aggs = jax.device_put(jnp.asarray(aggs), sh)
-    return fn(vks, packed, aggs)
+    return fn(
+        jax.device_put(vks, sh),
+        jax.device_put(packed_np, sh),
+        jax.device_put(aggs, sh),
+    )
 
 
 from functools import lru_cache as _lru_cache
@@ -223,19 +223,16 @@ from functools import lru_cache as _lru_cache
 
 @_lru_cache(maxsize=32)
 def _sharded_verify_fn(params: Params, mesh: Mesh, n_signers: int, chunk: int,
-                       lattice_chunk: int, axis: str, flags: tuple):
+                       axis: str, flags: tuple):
     """Compiled shard_map program cache for :func:`sharded_verify_device`
     (one entry per mesh/shape/pipeline-flavor combination)."""
-    from functools import partial as _partial
-
     from ..scheme import device_pipeline as dpl
 
-    P = dpl.get_pipeline(params, n_signers)
+    P = dpl._pipeline_cached(params, n_signers, *flags)
     P_spec = jax.sharding.PartitionSpec
-    local = _partial(P.fused_core, chunk=chunk, lattice_chunk=lattice_chunk)
     return jax.jit(
         jax.shard_map(
-            lambda v, p, a: local(v, p, a),
+            lambda v, p, a: P.fused_core(v, p, a, chunk),
             mesh=mesh,
             in_specs=(P_spec(axis), P_spec(axis), P_spec(axis)),
             out_specs=(P_spec(axis), P_spec(axis), P_spec(axis)),

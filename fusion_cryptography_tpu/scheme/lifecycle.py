@@ -1,6 +1,6 @@
 """Batched Fusion lifecycle: keygen -> sign -> aggregate -> verify on tensors.
 
-This is the TPU-native re-architecture of the reference scheme layer
+This is the tensor-native re-architecture of the reference scheme layer
 (/root/reference/fusion/fusion.py:298-728).  Where the reference walks Python
 object graphs one polynomial at a time, here a batch of B one-time keys is a
 dense ``int32[B, 2, rank, d]`` tensor and every ring operation is a vectorized

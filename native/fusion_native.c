@@ -1,9 +1,9 @@
-/* fusion_native.c — native host pipeline for the Fusion TPU framework.
+/* fusion_native.c — native host pipeline for the Fusion JAX framework.
  *
  * The reference implementation's host costs (SHAKE/SHA3 hashing, repr-string
  * serialization, XOF byte decoding, seeded sampling — see SURVEY.md §3 hot
  * paths) dominate end-to-end verify throughput once the lattice math runs on
- * TPU.  This module implements that entire host pipeline in C with pthread
+ * the accelerator.  This module implements that entire host pipeline in C with pthread
  * fan-out, exposed via ctypes (no Python C-API dependency):
  *
  *   - Keccak-f[1600] sponge: SHA3-256 and SHAKE256 (FIPS 202);
@@ -968,7 +968,7 @@ void fn_sample_uniform_batch(const uint64_t *seeds, int32_t n_seeds, int32_t deg
 /* ------------------------------------------------------------------ */
 /* Batched message prehash: sha3_256(dst + "," + msg) -> decimal digits */
 /* (the host half of the device verify pipeline; everything else runs   */
-/* on the TPU)                                                          */
+/* on the device)                                                       */
 /* ------------------------------------------------------------------ */
 
 typedef struct {

@@ -169,8 +169,8 @@ def test_linearity_and_pointwise_homomorphism():
 
 
 def test_ntt_inv_mxu_matches_butterfly():
-    """The MXU limb-matmul inverse transform (kept as a documented
-    alternative; see its docstring) is a bit-exact twin of ntt_inv_u."""
+    """The dense limb-matmul inverse transform (off the production path;
+    see its docstring) is a bit-exact twin of ntt_inv_u."""
     import jax.numpy as jnp
 
     from fusion_cryptography_tpu.ops.ntt import make_plan, ntt_inv_u, ntt_inv_u_mxu

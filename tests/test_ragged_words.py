@@ -274,18 +274,18 @@ def test_device_prehash_pipeline_matches_host():
     aggs = jnp.asarray(rng.integers(-(q // 2), q // 2 + 1, size=(G, params.rank, d)).astype(np.int32))
     msgs = ["", "hello", "a" * 140, "unicode: éß"]
 
-    fn3, fn5 = dp._pipeline(params, N)
-    assert fn5.device_prehash, "word path should default to device prehash"
+    assert dp.get_pipeline(params, N).device_prehash, (
+        "word path should default to device prehash")
     out_dev = dp.derive_coeffs_device(params, vks, msgs, aggs)
 
     import os
     os.environ["FUSION_HOST_PREHASH"] = "1"
-    dp._pipeline.cache_clear()
+    dp._pipeline_cached.cache_clear()
     try:
         out_host = dp.derive_coeffs_device(params, vks, msgs, aggs)
     finally:
         del os.environ["FUSION_HOST_PREHASH"]
-        dp._pipeline.cache_clear()
+        dp._pipeline_cached.cache_clear()
     for a, b in zip(out_dev[3:], out_host[3:]):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
